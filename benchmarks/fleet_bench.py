@@ -1,13 +1,13 @@
 #!/usr/bin/env python
 """Multi-robot MCL fleet throughput (models/fleet.py).
 
-R independent filters share one floor-plan LUT; the per-particle panorama
-row gather is issue-latency-bound, so stacking the fleet amortizes it —
-throughput should rise with R like it rises with N (RESULTS.md roofline).
+R independent filters share one floor-plan LUT; stacking the fleet
+amortizes the per-step fixed costs, so throughput should rise with R like it
+rises with N.
 
     python benchmarks/fleet_bench.py [--robots 8] [--particles 100000]
 
-Prints per-R JSON lines plus the single-filter baseline.
+Prints per-R JSON lines, each naming the device.
 """
 
 import argparse
@@ -26,16 +26,18 @@ def main():
     ap.add_argument("--robots", type=int, nargs="+", default=[1, 4, 8, 16])
     ap.add_argument("--particles", type=int, default=100_000)
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--cpu", action="store_true",
+                    help="functional check on the CPU instead of the GPU")
     args = ap.parse_args()
 
     import jax
-
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    import bench as B
+    from slam_tpu.utils.runtime import enable_compile_cache, require_gpu
+
+    device = require_gpu(args.cpu)
+    enable_compile_cache()
+
     from slam_tpu.core.config import (
         LidarConfig,
         MCLConfig,
@@ -44,10 +46,11 @@ def main():
     )
     from slam_tpu.core.types import Odometry, Pose
     from slam_tpu.models import fake_lidar, fleet
+    from slam_tpu.models.simulate import synthetic_floor_plan
     from slam_tpu.ops import rayfield
     from slam_tpu.ops.measurement import sensor_pose
 
-    blocked = jnp.asarray(B.floor_plan_blocked())
+    blocked = jnp.asarray(synthetic_floor_plan())
     h, w = blocked.shape
     lidar = LidarConfig(start=0.0, stop=np.pi, max_dist=500.0, n_rays=90)
     rc = RaycastConfig(step=0.5, max_dist=500.0, backend="lut")
@@ -60,9 +63,6 @@ def main():
     field = rayfield.make_ray_field(blocked, rc)
     alphas = (0.0005, 0.0005, 0.01, 0.01)
     odom = Odometry.create(2.5, 0.02, 0.02)
-
-    def fence(states):
-        np.asarray(jax.device_get(states.particles.log_weight.ravel()[:1]))
 
     rng = np.random.default_rng(0)
     for r in args.robots:
@@ -96,17 +96,19 @@ def main():
         states = fl.init(poses)
         for _ in range(3):
             states = fl.step(states, odoms_b, scans_b, field, alphas)
-        fence(states)
+        jax.block_until_ready(states)
         t0 = time.perf_counter()
         for _ in range(args.iters):
             states = fl.step(states, odoms_b, scans_b, field, alphas)
-        fence(states)
+        jax.block_until_ready(states)
         dt = (time.perf_counter() - t0) / args.iters
         pu = r * args.particles / dt
+        prefix = "cpu_functional_check_" if device["platform"] == "cpu" else ""
         print(json.dumps({
-            "metric": f"fleet_mcl_step_ms_r{r}",
+            "metric": f"{prefix}fleet_mcl_step_ms_r{r}",
             "value": round(dt * 1e3, 2),
             "unit": "ms",
+            "device": device,
         }))
         print(
             f"# R={r} x {args.particles}: {dt*1e3:.1f} ms/fleet-step = "

@@ -1,20 +1,18 @@
 #!/usr/bin/env python
-"""Big-map benchmark: MCL on the reference's maze (2354x2464 px).
+"""Big-map benchmark: MCL on a maze at the reference maze's 2354x2464 px.
 
-Round-1 status: sphere tracing (sdf) ran 2.2 s/step at 10k particles —
-grazing rays in long corridors are its worst case — and a bf16 dense LUT at
-360 bins (~4.2 GB) was written off as infeasible. The round-2 answer is the
-bins-LAST dense table + panorama-fused measurement (see slam_tpu.ops.lut):
-the per-step cost is one 360-byte row read per particle regardless of map
-size, and the u8 fixed-point table (2.1 GB at 360 bins) halves HBM vs bf16
-so maze-scale maps fit comfortably. CDDT's compressed probes (binary
-searches -> gather chains) would be SLOWER on TPU than the dense row read;
-dense + quantized is the TPU-idiomatic form of that trade.
+Sphere tracing (sdf) is at its worst here (grazing rays in long corridors),
+so the static-map path is the bins-LAST dense table + panorama-fused
+measurement (see slam_tpu.ops.lut): the per-step cost is one 360-byte row
+read per particle regardless of map size, and the u8 fixed-point table
+(2.1 GB at 360 bins) halves device memory vs bf16. CDDT's compressed probes
+(binary searches -> gather chains) trade that memory for dependent gathers.
 
-Emits JSON lines:
-  maze_mcl_step_ms_10k      — full predict+update+resample step latency
-  maze_localization_ate_px  — closed-loop tracking ATE (60 steps)
-  maze_lut_build_s          — one-off table build time
+The map is `simulate.synthetic_maze` unless ``--map`` names a PNG. Emits
+JSON lines, each naming the device:
+  <map>_mcl_step_ms_10k      — full predict+update+resample step latency
+  <map>_localization_ate_px  — closed-loop tracking ATE (60 steps)
+  <map>_lut_build_s          — one-off table build time
 
 Usage: python benchmarks/maze_bench.py [--particles 10000] [--dtype u8]
 """
@@ -30,37 +28,6 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def find_start(blocked: np.ndarray) -> tuple[float, float]:
-    """A free cell with good clearance near the map center (maze corridors
-    are narrow; pick the most open spot in the central region).
-
-    One JFA distance transform replaces the old iterated-erosion loop: the
-    max-clearance set is exactly the last nonempty erosion, and the erosion
-    fallback (no native lib) took minutes on maze-sized maps."""
-    import jax.numpy as jnp
-
-    from slam_tpu.ops import edt as edtlib
-
-    # Out-of-map counts as blocked (the old erosion padded with obstacle),
-    # so clearance at the border is distance to the border.
-    bpad = np.pad(np.asarray(blocked), 1, constant_values=True)
-    e = np.array(edtlib.edt_capped(jnp.asarray(bpad), 64.0))[1:-1, 1:-1]
-    # Candidates are FREE cells only (on a map whose best clearance is
-    # <= 1 px the slack band below would otherwise admit blocked cells).
-    # Cells clearer than the JFA cap saturate to one plateau value, which
-    # just widens the near-max tie set — any >= 64 px-clear cell is an
-    # equally good start, and the center-distance pick breaks the tie.
-    free = ~np.asarray(blocked)
-    e[~free] = 0.0
-    # Near-max clearance (1 px slack absorbs the JFA's metric quantization),
-    # then closest to the map center among those.
-    ii, jj = np.nonzero(free & (e >= e[free].max() - 1.0))
-    h, w = blocked.shape
-    k = np.argmin((ii - h / 2) ** 2 + (jj - w / 2) ** 2)
-    i, j = int(ii[k]), int(jj[k])
-    return float(j) + 0.5, float(h - i) - 0.5  # world coords
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--particles", type=int, default=10_000)
@@ -68,32 +35,31 @@ def main():
     ap.add_argument("--dtype", default="u8", choices=["u8", "bf16"])
     ap.add_argument(
         "--backend", default="lut", choices=["lut", "cddt"],
-        help="dense table (fastest) or compressed intervals (50x less HBM "
+        help="dense table or compressed intervals (50x less device memory "
         "on the maze: 42 MB vs 2.09 GiB, K=17)",
     )
     ap.add_argument("--bins", type=int, default=360)
     ap.add_argument("--quality-steps", type=int, default=60)
-    ap.add_argument("--map", default="/root/reference/assets/maze.png")
-    ap.add_argument("--size", type=int, default=2400,
-                    help="synthetic-maze side when --map is missing")
+    ap.add_argument("--map", default=None,
+                    help="maze PNG (default: the generated maze)")
+    ap.add_argument("--size", type=int, nargs=2, default=(2354, 2464),
+                    metavar=("H", "W"), help="generated-maze size")
     ap.add_argument("--pitch", type=int, default=40,
-                    help="synthetic-maze wall spacing (px)")
-    ap.add_argument("--synthetic", action="store_true",
-                    help="force the procedural maze even if --map exists — "
-                    "with --size 7000 --pitch 400 --backend cddt this is the "
-                    "beyond-HBM tier demo: the dense u8 table would be "
-                    "size^2 * bins bytes (17.6 GB at 7000^2 x 360 > the v5e's "
-                    "16 GB HBM) while the compressed intervals fit easily")
-    ap.add_argument("--cpu", action="store_true")
+                    help="generated-maze wall spacing (px); with --size 7000 "
+                    "7000 --pitch 400 --backend cddt the dense u8 table would "
+                    "be size^2 * bins bytes (17.6 GB at 7000^2 x 360) while "
+                    "the compressed intervals stay small")
+    ap.add_argument("--cpu", action="store_true",
+                    help="functional check on the CPU instead of the GPU")
     args = ap.parse_args()
-
-    if args.cpu:
-        import jax as _jax
-
-        _jax.config.update("jax_platforms", "cpu")
 
     import jax
     import jax.numpy as jnp
+
+    from slam_tpu.utils.runtime import enable_compile_cache, require_gpu
+
+    device = require_gpu(args.cpu)
+    enable_compile_cache()
 
     from slam_tpu.core.config import (
         LidarConfig,
@@ -108,26 +74,12 @@ def main():
     from slam_tpu.ops import rayfield
     from slam_tpu.utils.metrics import ate_rmse
 
-    if os.path.exists(args.map) and not args.synthetic:
+    if args.map:
         from slam_tpu.utils.maps import load_binary_map
 
         blocked_np = load_binary_map(args.map) == 0
-    else:  # synthetic stand-in maze
-        h = w = args.size
-        p = args.pitch
-        lo, hi = p // 5, p - p // 5  # door span within each wall segment
-        rng = np.random.default_rng(0)
-        blocked_np = np.zeros((h, w), bool)
-        blocked_np[::p, :] = True
-        blocked_np[:, ::p] = True
-        for i in range(0, h, p):  # knock doors
-            for j in range(0, w, p):
-                if rng.random() < 0.7:
-                    blocked_np[i, j + lo : j + hi] = False
-                if rng.random() < 0.7:
-                    blocked_np[i + lo : i + hi, j] = False
-        blocked_np[[0, -1], :] = True
-        blocked_np[:, [0, -1]] = True
+    else:
+        blocked_np = simulate.synthetic_maze(*args.size, pitch=args.pitch)
     h, w = blocked_np.shape
     blocked = jnp.asarray(blocked_np)
 
@@ -148,15 +100,12 @@ def main():
         ),
     )
 
-    def fence(x):
-        np.asarray(jax.device_get(jax.tree.leaves(x)[0]).ravel()[:1])
-
     t0 = time.perf_counter()
     field = rayfield.make_ray_field(
         blocked, rc, cache_dir=os.path.join(os.path.dirname(__file__), "..", ".build", "lut_cache")
     )
     if args.backend == "lut":
-        fence(field.lut)
+        jax.block_until_ready(field.lut)
         build_s = time.perf_counter() - t0
         gib = field.lut.size * field.lut.dtype.itemsize / 2**30
         print(
@@ -165,7 +114,7 @@ def main():
             file=sys.stderr,
         )
     else:
-        fence(field.cddt.starts)
+        jax.block_until_ready(field.cddt.starts)
         build_s = time.perf_counter() - t0
         print(
             f"# CDDT [{args.bins // 2}x{field.cddt.d}xK={field.cddt.k}] = "
@@ -173,7 +122,7 @@ def main():
             file=sys.stderr,
         )
 
-    sx, sy = find_start(blocked_np)
+    sx, sy = simulate.find_start(blocked_np)
     pose = Pose.create(sx, sy, 0.9)
     scan = fake_lidar.scan(blocked, pose, lidar, RaycastConfig(max_dist=500.0))
     odom = Odometry.create(0.05, 1.0, 0.05)
@@ -187,11 +136,11 @@ def main():
     state = mcl_mod.init(jax.random.key(0), args.particles, pose)
     for _ in range(3):
         state = step(state, field, scan)
-    fence(state.particles.log_weight)
+    jax.block_until_ready(state.particles.log_weight)
     t0 = time.perf_counter()
     for _ in range(args.iters):
         state = step(state, field, scan)
-    fence(state.particles.log_weight)
+    jax.block_until_ready(state.particles.log_weight)
     step_ms = (time.perf_counter() - t0) / args.iters * 1e3
 
     # Closed-loop quality: tight arc inside the corridor around the start.
@@ -210,9 +159,9 @@ def main():
     ate = ate_rmse(res.est_xy, res.gt_xy)
 
     tag = "" if args.backend == "lut" else f"_{args.backend}"
-    name = "maze"
-    if args.synthetic or not os.path.exists(args.map):
-        name = f"synthmaze{args.size}"
+    name = "maze" if args.map else f"synthmaze{h}x{w}"
+    if device["platform"] == "cpu":
+        name = f"cpu_functional_check_{name}"
     for metric, value, unit in (
         (f"{name}_mcl_step_ms_{args.particles // 1000}k{tag}", step_ms, "ms"),
         (f"{name}_localization_ate_px{tag}", float(ate), "px"),
@@ -220,7 +169,8 @@ def main():
     ):
         print(
             json.dumps(
-                {"metric": metric, "value": round(value, 3), "unit": unit}
+                {"metric": metric, "value": round(value, 3), "unit": unit,
+                 "device": device}
             )
         )
 

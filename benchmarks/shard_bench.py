@@ -1,22 +1,21 @@
 #!/usr/bin/env python
-"""Turnkey pod benchmark: the full sharded SLAM step over whatever mesh
-exists (VERDICT r2 item 5).
+"""Turnkey multi-GPU benchmark: the full sharded SLAM step over whatever
+mesh exists.
 
 Runs `ShardedGridSLAM` (particles sharded over 'p', rays over 'b', grid
 replicated, reduce-scatter resampler) at large N on ALL visible devices and
 reports per-chip throughput plus the collective/imbalance overhead: the
 sharded step time minus the time of the SAME step program on ONE device at
-N / n_devices particles (the perfect-weak-scaling reference). Config matches
-tools/slam_roofline.py (floor plan, 90 beams, likelihood-field measurement,
-JFA EDT rebuilt inside the step) so single-chip numbers line up with
-RESULTS.md's full-SLAM table.
+N / n_devices particles (the perfect-weak-scaling reference). Config:
+synthetic floor plan, 90 beams, likelihood-field measurement, JFA EDT
+rebuilt inside the step.
 
-    python benchmarks/shard_bench.py                      # real chip(s)
+    python benchmarks/shard_bench.py                      # all local GPUs
     python benchmarks/shard_bench.py --virtual 8 --particles 65536
         # correctness/pipeline check on a virtual 8-device CPU mesh
 
-One real pod slice needs zero new code: the mesh is whatever
-`jax.devices()` exposes.
+Several GPUs need no new code: the mesh is whatever `jax.devices()`
+exposes.
 """
 
 from __future__ import annotations
@@ -43,14 +42,12 @@ def main():
         "--measurement",
         default="likelihood_field_table",
         choices=["likelihood_field", "likelihood_field_table"],
-        help="table = the large-N fast path (1M step 706 -> 65 ms, "
-        "RESULTS.md round 3)",
+        help="table = the large-N fast path",
     )
     ap.add_argument(
         "--table-box", type=int, default=0,
         help="lf_table_box for the table measurement (0 = dense build; "
-        "128 is the measured 1M production setting — box-localized build, "
-        "round 4)",
+        "128 is the 1M production setting — box-localized build)",
     )
     ap.add_argument(
         "--virtual",
@@ -65,13 +62,14 @@ def main():
             os.environ.get("XLA_FLAGS", "")
             + f" --xla_force_host_platform_device_count={args.virtual}"
         )
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
     import jax
     import jax.numpy as jnp
 
-    from bench import floor_plan_blocked
+    from slam_tpu.utils.runtime import enable_compile_cache, require_gpu
+
+    device = require_gpu(bool(args.virtual))
+    enable_compile_cache()
+
     from slam_tpu.core.config import (
         LidarConfig,
         MCLConfig,
@@ -81,6 +79,7 @@ def main():
     )
     from slam_tpu.core.types import Odometry, Pose
     from slam_tpu.models import fake_lidar, slam as slam_mod
+    from slam_tpu.models.simulate import synthetic_floor_plan
     from slam_tpu.parallel import ShardedGridSLAM, make_mesh
 
     mesh = make_mesh(beam_axis=args.beam_axis)
@@ -90,7 +89,7 @@ def main():
     # Divisible by 'p', and at least one particle per shard.
     n = max(p_size, args.particles - (args.particles % p_size))
 
-    blocked = jnp.asarray(floor_plan_blocked())
+    blocked = jnp.asarray(synthetic_floor_plan())
     lidar = LidarConfig(start=0.0, stop=np.pi, max_dist=500.0, n_rays=90)
     rc = RaycastConfig(step=0.5, max_dist=500.0, backend="sdf")
 
@@ -112,21 +111,20 @@ def main():
     scan = fake_lidar.scan(blocked, pose, lidar, RaycastConfig(max_dist=500.0))
     odom = Odometry.create(2.5, 0.02, 0.02)
 
-    from slam_tpu.utils.profiling import fence
 
     # --- sharded step over the full mesh ---
     engine = ShardedGridSLAM(mesh, cfg)
     state = engine.init(pose)
     for _ in range(args.warmup):
         state = engine.step(state, odom, scan)
-    fence(state)
+    jax.block_until_ready(state)
 
     sharded_ms = []
     for _ in range(max(1, args.repeats)):
         t0 = time.perf_counter()
         for _ in range(args.iters):
             state = engine.step(state, odom, scan)
-        fence(state)
+        jax.block_until_ready(state)
         sharded_ms.append(1e3 * (time.perf_counter() - t0) / args.iters)
     t_shard = float(np.median(sharded_ms))
 
@@ -143,13 +141,13 @@ def main():
     odom_l, scan_l = jax.device_put((odom, scan), dev0)
     for _ in range(args.warmup):
         state_l = step_l(state_l, odom_l, scan_l)
-    fence(state_l)
+    jax.block_until_ready(state_l)
     local_ms = []
     for _ in range(max(1, args.repeats)):
         t0 = time.perf_counter()
         for _ in range(args.iters):
             state_l = step_l(state_l, odom_l, scan_l)
-        fence(state_l)
+        jax.block_until_ready(state_l)
         local_ms.append(1e3 * (time.perf_counter() - t0) / args.iters)
     t_local = float(np.median(local_ms))
 
@@ -160,14 +158,16 @@ def main():
     # t_shard < t_local can legitimately occur and "overhead" would conflate
     # the beam-split speedup. Flag the fields rather than misreport.
     ref_exact = b_size == 1
+    prefix = "cpu_functional_check_" if device["platform"] == "cpu" else ""
     rec = {
-        "metric": f"slam_sharded_step_ms_{n // 1000}k",
+        "metric": f"{prefix}slam_sharded_step_ms_{n // 1000}k",
         "value": round(t_shard, 2),
         "unit": "ms",
         # scaling efficiency vs the perfect-weak-scaling single-device run
         "vs_baseline": round(t_local / t_shard, 3) if ref_exact else None,
         "reference_exact": ref_exact,
         "n_devices": int(n_dev),
+        "device": device,
         "measurement": args.measurement,
         "mesh": dict(mesh.shape),
         "particles": int(n),
@@ -193,8 +193,7 @@ def main():
         f"{t_shard:.1f} ms/step vs local-equivalent {t_local:.1f} ms "
         f"(overhead {t_shard - t_local:.1f} ms, efficiency "
         f"{100 * t_local / max(t_shard, 1e-9):.0f}%{caveat}); "
-        f"{pu_s / n_dev:,.0f} particle-updates/s/chip on "
-        f"{jax.devices()[0].device_kind}",
+        f"{pu_s / n_dev:,.0f} particle-updates/s/device on {device['kind']}",
         file=sys.stderr,
     )
 

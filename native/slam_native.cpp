@@ -2,7 +2,7 @@
 //
 // The reference implements its entire runtime in C++ (pthread fan-outs in
 // `slam/mcl.cpp:108-144`, scalar DDA raycast in `slam/raycast.cpp:8-141`,
-// OpenCV erode preambles in the apps). The TPU compute path here is
+// OpenCV erode preambles in the apps). The accelerator compute path here is
 // JAX/XLA, but the host-side pieces that feed and check it stay native:
 //
 //   * rc_raycast_batch  — multithreaded exact-reference-semantics DDA

@@ -1,12 +1,12 @@
-"""slam_tpu: a TPU-native 2D grid-SLAM framework.
+"""slam_tpu: an accelerator-native 2D grid-SLAM framework.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the C++
+Built from scratch in JAX/XLA with the capabilities of the C++
 reference (ferasboulala/slam): Monte-Carlo localization with occupancy-grid
 mapping, a simulated lidar, and motion planners (A*, Hybrid A*, RRT*) —
 re-designed as vectorized, compiler-friendly programs over device meshes
 rather than a translation of the reference's pointer/thread-based C++.
 
-Layer map (mirrors SURVEY.md section 1, rebuilt TPU-first):
+Layer map (mirrors SURVEY.md section 1, rebuilt accelerator-first):
   core/      — SoA pose/particle types, grid coordinate transforms, math
   ops/       — vectorized kernels: motion sampling, raycast, beam model,
                log-odds mapping, resampling, batched spatial queries

@@ -18,6 +18,7 @@ import numpy as np
 from slam_tpu.apps.common import inflate, load_blocked, measure_time
 from slam_tpu.planners import AStar
 from slam_tpu.utils import render
+from slam_tpu.utils.runtime import enable_compile_cache, require_gpu
 
 
 def main(argv=None):
@@ -26,15 +27,16 @@ def main(argv=None):
     ap.add_argument("--start", type=int, nargs=2, default=None, metavar=("I", "J"))
     ap.add_argument("--goal", type=int, nargs=2, default=None, metavar=("I", "J"))
     ap.add_argument("--inflate", type=int, default=0)
-    ap.add_argument("--out", default="astar.png")
+    ap.add_argument("--out", default=None,
+                    help="image to write (nothing is written when absent)")
     ap.add_argument("--animate", default=None, metavar="GIF",
                     help="write wavefront animation (uses the incremental API)")
-    ap.add_argument("--cpu", action="store_true", help="force CPU backend")
+    ap.add_argument("--cpu", action="store_true",
+                    help="functional check on the CPU instead of the GPU")
     args = ap.parse_args(argv)
 
-    if args.cpu:
-        import jax as _jax
-        _jax.config.update("jax_platforms", "cpu")
+    print("device:", require_gpu(args.cpu))
+    enable_compile_cache()
 
     blocked = load_blocked(args.map)
     h, w = blocked.shape
@@ -74,8 +76,9 @@ def main(argv=None):
         print("no path found")
     render.draw_disc(img, start[0], start[1], 4, render.BLUE)
     render.draw_disc(img, goal[0], goal[1], 4, render.RED)
-    render.save_png(img, args.out)
-    print(f"-> {args.out}")
+    if args.out:
+        render.save_png(img, args.out)
+        print(f"-> {args.out}")
     return ok
 
 

@@ -43,6 +43,7 @@ from slam_tpu.ops import motion as motion_ops
 from slam_tpu.ops.measurement import sensor_pose
 from slam_tpu.utils import render
 from slam_tpu.utils.metrics import ate_rmse
+from slam_tpu.utils.runtime import enable_compile_cache, require_gpu
 
 
 def auto_commands(step_idx, gt_pose, blocked, trans, key):
@@ -97,7 +98,8 @@ def main(argv=None):
     ap.add_argument("--max-dist", type=float, default=200.0)
     ap.add_argument("--scanner-offset", type=float, nargs=3, default=(0.0, 0.0, 0.0))
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default="grid_slam.gif")
+    ap.add_argument("--out", default=None,
+                    help="animated GIF to write (no frames are drawn when absent)")
     ap.add_argument("--frame-every", type=int, default=2)
     ap.add_argument("--interactive", action="store_true", help="read w/a/s/d from stdin")
     ap.add_argument("--commands", default=None, help="file of 'rot1 trans rot2' lines")
@@ -110,12 +112,12 @@ def main(argv=None):
         "output estimate (and the mapping pose) is the local likelihood-"
         "field peak around the best particle (ops/scanmatch.py)",
     )
-    ap.add_argument("--cpu", action="store_true", help="force CPU backend")
+    ap.add_argument("--cpu", action="store_true",
+                    help="functional check on the CPU instead of the GPU")
     args = ap.parse_args(argv)
 
-    if args.cpu:
-        import jax as _jax
-        _jax.config.update("jax_platforms", "cpu")
+    print("device:", require_gpu(args.cpu))
+    enable_compile_cache()
 
     blocked_np = load_blocked(args.map)
     blocked = jnp.asarray(blocked_np)
@@ -262,7 +264,7 @@ def main(argv=None):
         if ckpt_mgr is not None and (t + 1) % args.checkpoint_every == 0:
             ckpt_mgr.save(t, {"state": state, "gt": gt_pose, "key": key})
 
-        if t % args.frame_every == 0:
+        if args.out and t % args.frame_every == 0:
             if args.mode == "slam":
                 img = render.prob_to_rgb(np.asarray(engine.prob_map(state)))
             else:
@@ -282,7 +284,7 @@ def main(argv=None):
     if frames:
         render.save_gif(frames, args.out)
     ate = ate_rmse(np.asarray(est_xy), np.asarray(gt_xy))
-    print(f"steps={len(est_xy)} ATE={ate:.2f}px -> {args.out}")
+    print(f"steps={len(est_xy)} ATE={ate:.2f}px" + (f" -> {args.out}" if frames else ""))
     return ate
 
 

@@ -20,6 +20,7 @@ import numpy as np
 from slam_tpu.apps.common import measure_time
 from slam_tpu.ops import spatial
 from slam_tpu.utils import render
+from slam_tpu.utils.runtime import enable_compile_cache, require_gpu
 
 
 def main(argv=None):
@@ -36,13 +37,14 @@ def main(argv=None):
         "visualization analog of the reference's kd-tree split lines, "
         "`slam/kdtree.cpp:201-223`)",
     )
-    ap.add_argument("--out", default="nearest_neighbor.png")
-    ap.add_argument("--cpu", action="store_true", help="force CPU backend")
+    ap.add_argument("--out", default=None,
+                    help="image to write (nothing is written when absent)")
+    ap.add_argument("--cpu", action="store_true",
+                    help="functional check on the CPU instead of the GPU")
     args = ap.parse_args(argv)
 
-    if args.cpu:
-        import jax as _jax
-        _jax.config.update("jax_platforms", "cpu")
+    print("device:", require_gpu(args.cpu))
+    enable_compile_cache()
 
     rng = np.random.default_rng(args.seed)
     px = rng.uniform(0, args.size, args.n).astype(np.float32)
@@ -95,8 +97,9 @@ def main(argv=None):
         render.draw_disc(img, ni, nj, 3, render.GREEN)
         render.draw_line(img, qi, qj, ni, nj, render.BLUE)
         print(f"query ({qx[k]:.0f},{qy[k]:.0f}) -> point {idx[k]} at {dist[k]:.1f}px")
-    render.save_png(img, args.out)
-    print(f"-> {args.out}")
+    if args.out:
+        render.save_png(img, args.out)
+        print(f"-> {args.out}")
 
 
 if __name__ == "__main__":

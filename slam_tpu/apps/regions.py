@@ -19,6 +19,7 @@ import numpy as np
 from slam_tpu.apps.common import measure_time
 from slam_tpu.ops import spatial
 from slam_tpu.utils import render
+from slam_tpu.utils.runtime import enable_compile_cache, require_gpu
 
 
 def main(argv=None):
@@ -35,13 +36,14 @@ def main(argv=None):
         "`slam/quadtree.cpp:141-161`; here a host-side visualization — the "
         "production range query is dense)",
     )
-    ap.add_argument("--out", default="regions.png")
-    ap.add_argument("--cpu", action="store_true", help="force CPU backend")
+    ap.add_argument("--out", default=None,
+                    help="image to write (nothing is written when absent)")
+    ap.add_argument("--cpu", action="store_true",
+                    help="functional check on the CPU instead of the GPU")
     args = ap.parse_args(argv)
 
-    if args.cpu:
-        import jax as _jax
-        _jax.config.update("jax_platforms", "cpu")
+    print("device:", require_gpu(args.cpu))
+    enable_compile_cache()
 
     rng = np.random.default_rng(args.seed)
     px = rng.uniform(0, args.size, args.n).astype(np.float32)
@@ -107,8 +109,9 @@ def main(argv=None):
         render.draw_line(img, i0, x0, i1, x0, render.RED)
         render.draw_line(img, i0, x1, i1, x1, render.RED)
         print(f"box {k}: {int(mask[k].sum())} points inside")
-    render.save_png(img, args.out)
-    print(f"-> {args.out}")
+    if args.out:
+        render.save_png(img, args.out)
+        print(f"-> {args.out}")
 
 
 if __name__ == "__main__":

@@ -19,6 +19,7 @@ from slam_tpu.apps.common import inflate, load_blocked, measure_time
 from slam_tpu.core.config import RRTStarConfig, RaycastConfig
 from slam_tpu.planners import RRTStar
 from slam_tpu.utils import render
+from slam_tpu.utils.runtime import enable_compile_cache, require_gpu
 
 
 def main(argv=None):
@@ -33,7 +34,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--inflate", type=int, default=5)
     ap.add_argument("--seed", type=int, default=1234)  # `benchmark/rrtstar.cpp`
-    ap.add_argument("--out", default="rrt.png")
+    ap.add_argument("--out", default=None,
+                    help="image to write (nothing is written when absent)")
     ap.add_argument("--animate", default=None, metavar="GIF",
                     help="write tree-growth animation (round-by-round API)")
     ap.add_argument(
@@ -41,12 +43,12 @@ def main(argv=None):
         help="read 'X1 Y1 X2 Y2' queries from stdin and replan on the warm "
         "planner (headless mouse loop, `apps/rrt_planner.cpp:44-68`)",
     )
-    ap.add_argument("--cpu", action="store_true", help="force CPU backend")
+    ap.add_argument("--cpu", action="store_true",
+                    help="functional check on the CPU instead of the GPU")
     args = ap.parse_args(argv)
 
-    if args.cpu:
-        import jax as _jax
-        _jax.config.update("jax_platforms", "cpu")
+    print("device:", require_gpu(args.cpu))
+    enable_compile_cache()
 
     blocked = load_blocked(args.map)
     h, w = blocked.shape
@@ -103,18 +105,21 @@ def main(argv=None):
             print(f"path cost {planner.path_cost():.1f}, {planner.size} nodes")
         else:
             print(f"no path ({planner.size} nodes)")
-        render.save_png(img, out)
-        print(f"-> {out}")
+        if out:
+            render.save_png(img, out)
+            print(f"-> {out}")
         return planner.success
 
     ok = run_and_render(args.out)
     if args.interactive:
         from slam_tpu.apps.common import interactive_queries
 
-        stem, dot, ext = args.out.rpartition(".")
+        stem, dot, ext = (args.out or "").rpartition(".")
         for k, (s, g) in enumerate(interactive_queries(), start=1):
             planner.reset_query(s, g, seed=args.seed)  # warm replan
-            ok = run_and_render(f"{stem}_{k}{dot}{ext}" if dot else f"{args.out}_{k}")
+            ok = run_and_render(
+                args.out and (f"{stem}_{k}{dot}{ext}" if dot else f"{args.out}_{k}")
+            )
     return ok
 
 

@@ -1,8 +1,8 @@
 """Core SoA pose/particle types.
 
 The reference keeps AoS structs (`slam/pose.h:7-45`: Pose{x,y,theta},
-Odometry, Velocity, Particle{pose, weight, cv::Mat map}). On TPU the
-idiomatic layout is structure-of-arrays pytrees so every phase of the filter
+Odometry, Velocity, Particle{pose, weight, cv::Mat map}). On an
+accelerator the idiomatic layout is structure-of-arrays pytrees so every phase of the filter
 vectorizes over the particle axis and shards cleanly over a device mesh.
 
 All fields are JAX arrays with an arbitrary (shared) leading batch shape, so
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from slam_tpu.core import struct
 
 
 @struct.dataclass

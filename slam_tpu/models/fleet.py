@@ -1,12 +1,9 @@
 """Multi-robot MCL: R independent filters on ONE shared map, one program.
 
-The reference runs one filter per process (`slam/mcl.h:12-46`); the TPU
-serving configuration batches a whole fleet. The measurement phase is
-latency-bound on per-particle panorama row gathers (RESULTS.md roofline:
-~60 ns/row regardless of row bytes), so stacking R robots' [N] gathers
-into one [R, N] stream amortizes issue latency across the fleet — R
-filters cost far less than R sequential steps, and the map/LUT is shared
-once in HBM.
+The reference runs one filter per process (`slam/mcl.h:12-46`); the
+serving configuration batches a whole fleet. Stacking R robots' [N]
+panorama row gathers into one [R, N] stream amortizes the per-step fixed
+costs across the fleet, and the map/LUT is shared once in device memory.
 
 Everything is `jax.vmap` over the pure single-filter step (models/mcl.py),
 so fleet numerics match R independent filters EXACTLY (same per-robot

@@ -1,6 +1,6 @@
 """Monte-Carlo localization: the particle filter core.
 
-TPU-native rebuild of `slam/mcl.{h,cpp}`. Phase mapping:
+Accelerator-native rebuild of `slam/mcl.{h,cpp}`. Phase mapping:
 
   MCL::predict (`slam/mcl.cpp:41-47`, per-particle loop)
       -> one vectorized odometry-model sample over the SoA particle state.
@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from slam_tpu.core import struct
 
 from slam_tpu.core import stats
 from slam_tpu.core.config import MCLConfig, RaycastConfig
@@ -291,7 +291,7 @@ def update(
     # reads the z_rand floor) the argmax is an arbitrary particle; mapping
     # from it bakes one random motion-noise draw (~0.05-0.1 rad of heading)
     # into the shared map's gauge permanently (measured: the 120-step
-    # deterministic arc's worst seeds, RESULTS.md round 4). Fall back to the
+    # deterministic arc's worst seeds). Fall back to the
     # sharpened mean, which under uniform weights is the prior mean
     # (error ~noise/sqrt(N)). "Uninformative" = the top score is a majority
     # tie, NOT ptp(lw) == 0: with lf_table_box (or any outlier-flooring

@@ -10,7 +10,7 @@ this mode exists for small-N A/B fidelity against the C++ behavior
 
 The maps are uint8 quantized P(free) with the reference's multiplicative
 clamped updates (floor 1/255, init 128 = 0.5); resampling "copies" maps by a
-single batched gather — the TPU form of the reference's core-pinned
+single batched gather — the vectorized form of the reference's core-pinned
 deep-copy threads.
 """
 
@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from slam_tpu.core import struct
 
 from slam_tpu.core.config import MCLConfig, RaycastConfig
 from slam_tpu.core.types import Odometry, Particles, Pose, Scan

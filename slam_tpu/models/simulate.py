@@ -248,3 +248,66 @@ def synthetic_room(h: int = 128, w: int = 128) -> np.ndarray:
     blocked[2 * h // 3 : 2 * h // 3 + 8, w // 5 : w // 5 + 8] = True
     blocked[h // 2 : h // 2 + 4, 3 * w // 4 : 3 * w // 4 + 10] = True
     return blocked
+
+
+def synthetic_floor_plan(h: int = 599, w: int = 1297) -> np.ndarray:
+    """bool[h, w] office-like floor plan at the reference floor plan's size
+    (599x1297): border walls, a grid of rooms, doors in every wall. The
+    reference benchmarks' cells stay free: the planner query (150, 450) ->
+    (450, 750) (connected through doors) and the MCL pose at world
+    (400, 400)."""
+    blocked = np.zeros((h, w), bool)
+    blocked[:4, :] = blocked[-4:, :] = True
+    blocked[:, :4] = blocked[:, -4:] = True
+    for x in range(300, w - 100, 200):  # vertical walls with door gaps
+        blocked[:, x : x + 4] = True
+        blocked[h // 2 - 40 : h // 2 + 40, x : x + 4] = False
+    for y in range(100, h - 40, 150):  # horizontal walls with door gaps
+        blocked[y : y + 4, :] = True
+        blocked[y : y + 4, w // 3 - 40 : w // 3 + 40] = False
+        blocked[y : y + 4, 2 * w // 3 - 40 : 2 * w // 3 + 40] = False
+    return blocked
+
+
+def synthetic_maze(
+    h: int = 2354, w: int = 2464, pitch: int = 40, seed: int = 0
+) -> np.ndarray:
+    """bool[h, w] seeded maze-like map, by default at the reference maze's
+    size (2354x2464): one-pixel walls on a ``pitch`` grid, each wall segment
+    opened by a door with probability 0.7, closed outer border."""
+    lo, hi = pitch // 5, pitch - pitch // 5  # door span within a segment
+    rng = np.random.default_rng(seed)
+    blocked = np.zeros((h, w), bool)
+    blocked[::pitch, :] = True
+    blocked[:, ::pitch] = True
+    for i in range(0, h, pitch):  # knock doors
+        for j in range(0, w, pitch):
+            if rng.random() < 0.7:
+                blocked[i, j + lo : j + hi] = False
+            if rng.random() < 0.7:
+                blocked[i + lo : i + hi, j] = False
+    blocked[[0, -1], :] = True
+    blocked[:, [0, -1]] = True
+    return blocked
+
+
+def find_start(blocked: np.ndarray) -> tuple[float, float]:
+    """World (x, y) of a free cell with the most clearance, nearest the map
+    center among near-ties (maze corridors are narrow)."""
+    from slam_tpu.ops import edt as edtlib
+
+    # Out-of-map counts as blocked, so clearance at the border is distance
+    # to the border.
+    bpad = np.pad(np.asarray(blocked), 1, constant_values=True)
+    e = np.array(edtlib.edt_capped(jnp.asarray(bpad), 64.0))[1:-1, 1:-1]
+    # Cells clearer than the cap saturate to one plateau value, which just
+    # widens the near-max tie set; the center-distance pick breaks the tie.
+    free = ~np.asarray(blocked)
+    e[~free] = 0.0
+    # Near-max clearance (1 px slack absorbs the JFA's metric quantization),
+    # then closest to the map center among those.
+    ii, jj = np.nonzero(free & (e >= e[free].max() - 1.0))
+    h, w = blocked.shape
+    k = np.argmin((ii - h / 2) ** 2 + (jj - w / 2) ** 2)
+    i, j = int(ii[k]), int(jj[k])
+    return float(j) + 0.5, float(h - i) - 0.5

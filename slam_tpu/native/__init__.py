@@ -1,7 +1,7 @@
 """ctypes bindings for the native host runtime (native/slam_native.cpp).
 
 The reference's runtime is C++ (pthread fan-outs, scalar DDA raycast,
-OpenCV preambles); here the TPU owns the compute path and these native
+OpenCV preambles); here the accelerator owns the compute path and these native
 pieces serve the host side: exact-semantics raycast oracle / sensor
 simulation off-device, disc erosion for vehicle inflation, and a threaded
 scan prefetcher. Everything degrades gracefully to pure-Python/JAX when the

@@ -2,7 +2,7 @@
 
 The dense beam LUT (`slam_tpu.ops.lut`) answers a ray query with one gather
 but stores [H, W, n_bins] — ~2 GiB for the reference maze at u8 and beyond
-HBM for anything larger. This module is the COMPRESSED form from the CDDT
+device memory for much larger maps. This module is the COMPRESSED form from the CDDT
 paper the dense table cites (Walsh & Karaman, arXiv:1705.01167): instead of
 a distance per (cell, bin), store per (bin, canvas-row) the sorted obstacle
 RUN intervals along the ray direction. Queries read the ray's whole
@@ -26,7 +26,7 @@ for ulp-level angle ties: the dense quad build derives bins [n/4, n/2)
 from the [0, n/4) canvases while this table evaluates their own angles.
 
 This is the static-map fallback tier for maps whose dense table outgrows
-HBM; for maps that fit, the dense bins-last table's panorama row gather
+device memory; for maps that fit, the dense bins-last table's panorama row gather
 stays the fast path (`ops/measurement.py`). Reference semantics:
 `slam/raycast.cpp:8-141` (march the query replaces).
 """
@@ -38,7 +38,7 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from slam_tpu.core import struct
 
 from slam_tpu.core import grid as gridlib
 from slam_tpu.ops import lut as lutlib

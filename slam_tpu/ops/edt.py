@@ -2,8 +2,8 @@
 
 The reference raycasts by scalar fixed-step DDA marching (`slam/raycast.cpp:
 8-141`) — up to max_dist/step (1000) sequential cell probes per ray. That is
-hostile to the TPU (a long chain of dependent scalar gathers). The TPU-native
-design precomputes a distance field over the map and lets rays take
+hostile to an accelerator (a long chain of dependent scalar gathers). The
+vectorized design precomputes a distance field over the map and lets rays take
 obstacle-aware adaptive steps (sphere tracing, see ops/raycast.py:raycast_sdf),
 turning ~1000 probes into ~tens.
 
@@ -19,7 +19,7 @@ Three implementations:
     workhorse (static-map sdf fields).
   * `edt_capped` — range-capped exact separable transform, O(H * W * cap):
     the per-step SLAM rebuild (the likelihood-field model only resolves
-    ~5 sigma of distance). ~2x the JFA's on-chip speed at the SLAM cap and
+    ~5 sigma of distance). Fewer ALU ops than the JFA at the SLAM cap and
     exact within it; `edt_refresh` updates it incrementally after
     localized map edits (bitwise-equal to a full rebuild).
 
@@ -135,10 +135,9 @@ def edt_jfa(
     inf = jnp.float32(1e9)
     # Seed coords pack as (row << 16) | col, NOT row * w + col: the pass
     # unpacks every rolled candidate (8 per cell per pass) and an i32
-    # divide/modulo is many VPU ops where shift/mask are single ones —
-    # the pass is ALU-bound, and the repack measured 15.1 -> 11.4 ms on
-    # the 2354x2464 maze on-chip (tools/jfa_pack_ab.py; a two-plane
-    # unpacked carry measured 20.5 — doubled roll traffic). -1 stays the
+    # divide/modulo is many vector ops where shift/mask are single ones —
+    # the pass is ALU-bound (tools/jfa_pack_ab.py compares the variants;
+    # a two-plane unpacked carry doubles the roll traffic). -1 stays the
     # no-seed sentinel.
     idx = jnp.where(blocked, (ii << 16) | jj, -1)
 
@@ -208,9 +207,9 @@ def edt_capped(
     (cummax/cummin index tricks, no gathers) then a (2C+1)-candidate
     shifted-min horizontal pass with precomputed k^2 constants — ~2 ALU
     ops per candidate where the capped JFA pays ~13 (seed unpack,
-    converts, selects) across 7 passes x 8 rolls. On-chip on the
-    2354x2464 maze: 6.4 ms vs the JFA's 11.2 (tools/jfa_pack_ab.py),
-    and EXACT within the cap rather than JFA+1-approximate.
+    converts, selects) across 7 passes x 8 rolls (tools/jfa_pack_ab.py
+    compares them), and EXACT within the cap rather than
+    JFA+1-approximate.
 
     Semantics: distances <= max_dist are exact; farther cells saturate
     to at least C+1 (cells with no seed in the (C+1)-clamped window read

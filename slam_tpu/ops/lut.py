@@ -1,15 +1,15 @@
 """Directional ray-distance lookup tables for static maps.
 
 The measurement update of MCL localization raycasts N_particles x N_beams
-rays against the SAME static map every step (`slam/mcl.cpp:49-77`). On TPU
-the per-ray march is gather-latency-bound, so for static maps we precompute
+rays against the SAME static map every step (`slam/mcl.cpp:49-77`). On an
+accelerator the per-ray march is gather-latency-bound, so for static maps we precompute
 the answer: ``lut[b, i, j]`` = distance from the center of cell (i, j) to the
 first blocked cell along angular bin b. A ray query is then ONE gather
 (+ elementwise angle binning) instead of a ~1000-probe march. This is the
 (uncompressed) directional distance transform of the CDDT family (Walsh &
 Karaman, "CDDT: Fast Approximate 2D Ray Casting for Accelerated
-Localization", arXiv:1705.01167) — the dense form trades HBM for O(1)
-queries, the right trade on TPU.
+Localization", arXiv:1705.01167) — the dense form trades device memory for
+O(1) queries.
 
 Build: for each bin, the map is resampled into a rotated canvas where the bin
 direction becomes "+column"; the run length to the next blocked cell along a
@@ -135,7 +135,7 @@ def build_beam_lut(
             # Fixed-point: v = floor(d / q), q = cap/255 (dequant adds q/2,
             # so the error is +-q/2 ~ +-1.2px at max_dist 500). Halves the
             # table vs bf16 — the dense-table answer to CDDT compression,
-            # for maps where [H, W, bins] at 2 bytes outgrows HBM.
+            # for maps where [H, W, bins] at 2 bytes outgrows device memory.
             q = cap / 255.0
             return jnp.clip(jnp.floor(out / q), 0.0, 255.0).astype(jnp.uint8)
         return out.astype(dtype)
@@ -207,13 +207,11 @@ def angle_bin(theta, n_bins: int):
 
 
 def padded_bins(n_bins: int, dtype) -> int:
-    """STORAGE row width that makes the row gather fastest on
-    UNIFORM-RANDOM indices (measured on v5e: bf16 360->512 is 64->36
-    ns/row; u8 360->384 is 56->35 ns/row). NOT applied by default:
-    converged MCL particles cluster on few cells, and with aligned rows
-    the hot set collides (full step 8.2 -> 11.4 ms at 100k, measured A/B)
-    — the odd unpadded stride spreads hot rows better. Kept for workloads
-    with genuinely scattered queries."""
+    """Aligned STORAGE row width for the row gather (512 for bf16, 384 for
+    u8). NOT applied by default: converged MCL particles cluster on few
+    cells, where aligned rows can make the hot set collide and the odd
+    unpadded stride spreads hot rows better. Kept for workloads with
+    genuinely scattered queries. Not measured on the H100."""
     mult = 384 if dtype == jnp.uint8 else 512
     return -(-n_bins // mult) * mult
 

@@ -4,7 +4,7 @@ The reference fuses mapping into weighting, marching each beam through the
 particle's own uint8 map and applying multiplicative clamped updates cell by
 cell (`slam/raycast.cpp:143-223`: p *= Lfree/L0 = 1.2 for cells before the
 measured endpoint, p *= Locc/L0 = 0.8 at the endpoint, floor 1/255). The
-TPU design replaces this with the textbook additive log-odds update
+shared-map design replaces this with the textbook additive log-odds update
 (`slam/util.h:72-73` semantics; SURVEY.md section 5 quirk 4's deliberate fix)
 applied as ONE scatter-add per scan:
 

@@ -1,6 +1,6 @@
 """Beam-endpoint measurement model.
 
-TPU-native re-expression of `measurement_model_beam` + the weighting loop of
+Vectorized re-expression of `measurement_model_beam` + the weighting loop of
 `MCL::update_inner` (`slam/raycast.cpp:225-242`, `slam/mcl.cpp:49-77`):
 instead of N_particles x N_beams scalar ray marches across a pthread fan-out,
 one batched raycast over the [N, B] ray grid followed by fused elementwise
@@ -152,7 +152,7 @@ def particle_log_weights_likelihood_field(
     distance to the nearest obstacle (one gather from the EDT) under a
     z_hit * N(0, sigma) + z_rand / z_max mixture; max-range beams are
     skipped, out-of-map endpoints get the random-mixture floor. No
-    raycasting — the TPU-fast model for both static and per-step-updated
+    raycasting — the fast model for both static and per-step-updated
     maps (the EDT rebuilds gather-free via JFA).
     """
     from slam_tpu.core.stats import pdf_normal
@@ -221,7 +221,7 @@ def lf_score_table(
     heading t)`` where ``L`` is the per-cell log mixture score
     ``log(z_hit * N(edt; sigma) + z_rand / z_max)`` of
     `particle_log_weights_likelihood_field`. Correlative scan matching
-    (Olson, ICRA 2009) turned into a TPU build: each (bin, beam) term is one
+    (Olson, ICRA 2009) turned into a dense build: each (bin, beam) term is one
     ``dynamic_slice`` window of the padded L field — B dense map-shaped adds
     per bin instead of per-particle scattered gathers. Max-range beams carry
     no endpoint information and are excluded (the direct model's skip at
@@ -266,9 +266,9 @@ def lf_score_table(
         j0 = jnp.asarray(origin[1], jnp.int32)
     pad = int(math.ceil(rc.max_dist)) + 1
     floor_val = float(math.log(max(z_rand / rc.max_dist, 1e-30)))
-    # The build is HBM-bound on the window reads (T x B x H x W elements);
-    # dtype="bf16" halves that traffic. Accumulation stays f32 (the einsum
-    # below upcasts), so only the per-cell score quantizes (~0.4% rel).
+    # The build reads T x B windows of the score field; dtype="bf16" halves
+    # that traffic. Accumulation stays f32 (the einsum below upcasts), so
+    # only the per-cell score quantizes (~0.4% rel).
     store = jnp.bfloat16 if dtype == "bf16" else jnp.float32
     if lpad is not None:
         if out_shape is None:
@@ -340,7 +340,11 @@ def lf_score_table(
                     lpad, (p + i0, q + j0), (si, sj)
                 )
             )(a, bcol)  # [chunk, si, sj]
-            return acc + jnp.einsum("bij,b->ij", win, v), None
+            # HIGHEST: at DEFAULT an f32 contraction may run in TF32 on a
+            # GPU (~3 decimal digits of each log-score).
+            return acc + jnp.einsum(
+                "bij,b->ij", win, v, precision=jax.lax.Precision.HIGHEST
+            ), None
 
         acc, _ = jax.lax.scan(
             body, jnp.zeros((si, sj), jnp.float32), (oi_t, oj_t, valid_c)
@@ -348,10 +352,10 @@ def lf_score_table(
         return acc
 
     if bin_sharding is not None:
-        # Multi-chip: bins in parallel (vmap) with the bin axis pinned to
+        # Multi-device: bins in parallel (vmap) with the bin axis pinned to
         # the mesh — each device builds T / |axis| bins; the downstream
         # per-particle gather re-replicates the table (one ~T*H*W*4 B
-        # all-gather over ICI). The sequential lax.map below stays the
+        # all-gather). The sequential lax.map below stays the
         # single-device default (vmap's [T, chunk, H, W] slice stack is
         # T/8-sharded here, but would be resident in full on one device).
         table = jax.lax.with_sharding_constraint(
@@ -382,13 +386,12 @@ def particle_log_weights_lf_table(
 
     The direct likelihood field issues N x B scattered scalar EDT gathers —
     the dominant cost of the large-N SLAM step (90M gathers at 1M particles
-    x 90 beams; RESULTS.md roofline: scattered scalar gathers are
-    latency-bound). This path builds `lf_score_table` over ``table_bins``
-    heading bins spanning the particle cloud's ACTUAL circular heading
-    spread (mean +- spread_mult * circular std, clamped to
-    [min_halfwidth, pi]), then scores each particle with ONE contiguous
-    2-element gather at its sensor cell (the bins-last table puts the
-    (t0, t0+1) lerp pair side by side).
+    x 90 beams; scattered scalar gathers are latency-bound). This path
+    builds `lf_score_table` over ``table_bins`` heading bins spanning the
+    particle cloud's ACTUAL circular heading spread (mean +- spread_mult *
+    circular std, clamped to [min_halfwidth, pi]), then scores each
+    particle with ONE contiguous 2-element gather at its sensor cell (the
+    bins-last table puts the (t0, t0+1) lerp pair side by side).
     Build cost is particle-count-independent; per-particle cost drops B-fold.
 
     Accuracy: endpoint positions are quantized by the sensor-cell rounding
@@ -407,11 +410,9 @@ def particle_log_weights_lf_table(
     ``box_size`` localizes the BUILD the same way the heading window
     localizes the bin axis: the table is built only over a static
     ``box_size x box_size`` cell box centered on the cloud's mean sensor
-    cell, so build traffic scales with T * box^2 instead of T * H * W —
-    at 1M particles on the floor plan that is the difference between the
-    build being ~a third of the SLAM step and being negligible, and it
-    removes the "table build scales with MAP AREA" term that made the
-    dense table lose on big maps (RESULTS.md maze tier decision).
+    cell, so build traffic scales with T * box^2 instead of T * H * W,
+    which removes the "table build scales with MAP AREA" term that made
+    the dense table lose on big maps.
     Particles whose sensor cell falls outside the box score the z_rand
     floor, exactly like out-of-window headings — a converged tracking
     cloud spans a few cells, so a 128-256 box is orders of magnitude of
@@ -430,7 +431,7 @@ def particle_log_weights_lf_table(
     repurposes its beam axis: when the mesh has a non-trivial 'b' axis the
     TABLE BUILD shards its heading-bin axis over it (each device builds
     T / |b| bins; the per-particle lookup gather re-replicates the table —
-    one ~T*H*W*4 B all-gather on ICI). All per-particle arrays are [N] and
+    one ~T*H*W*4 B all-gather). All per-particle arrays are [N] and
     keep the particle sharding as usual.
     """
     field = as_ray_field(field, rc)
@@ -680,10 +681,10 @@ def particle_log_weights_lut_fused(
     eps: float = 0.1,
     ray_sharding=None,
 ):
-    """Fused beam-model weights via LUT panorama rows — the TPU hot kernel.
+    """Fused beam-model weights via LUT panorama rows — the MCL hot path.
 
     Replaces the N_particles x N_beams scalar-gather query of the beam LUT
-    (the round-1 112 ms/step floor at 100k particles) with:
+    with:
 
       1. ONE contiguous row gather per particle — all bins of the sensor
          cell (`slam_tpu.ops.lut.panorama_rows`); valid because every beam
@@ -694,10 +695,10 @@ def particle_log_weights_lut_fused(
          EXACTLY the per-beam rounding of `raycast_lut` (g*k is an integer,
          so it commutes through round). Writing s_n = g*q_n + r_n, beam k
          lands at position (q_n + k) mod M of the stride-g comb r_n
-         (M = n_bins/g): selecting r_n is a one-hot contraction over g, and
-         aligning the measured ranges to positions is a one-hot [N, M] @
-         [M, 2M] matmul against a table of all M rolls of the scan — MXU
-         work instead of gathers.
+         (M = n_bins/g): selecting r_n is a one-hot multiply-and-sum over
+         g, and aligning the measured ranges to positions is a gather from
+         the M-entry scan table. Both are exact: no f32 contraction that a
+         GPU could run in TF32.
       3. The same clamped-Gaussian beam log-pdf + reduce as the general
          path (`slam/raycast.cpp:225-242` semantics).
     """
@@ -726,30 +727,26 @@ def particle_log_weights_lut_fused(
     if ray_sharding is not None:
         pano = jax.lax.with_sharding_constraint(pano, ray_sharding)
 
-    # Comb select: position p of comb r_n is bin g*p + r_n. Quantized (u8)
-    # tables compute in bf16 (integers <= 255 are exact) then dequantize.
+    # Comb select: position p of comb r_n is bin g*p + r_n. A one-hot
+    # multiply-and-sum (one nonzero term: exact in any dtype, and no
+    # contraction that could run in TF32). Quantized (u8) tables compute in
+    # bf16 (integers <= 255 are exact) then dequantize.
     cdt = jnp.bfloat16 if jnp.issubdtype(lut.dtype, jnp.integer) else lut.dtype
     oh_r = jax.nn.one_hot(r, g, dtype=cdt)  # [N, g]
-    raw = jnp.einsum(
-        "npg,ng->np", pano.reshape(-1, m, g).astype(cdt), oh_r
+    raw = jnp.sum(
+        pano.reshape(-1, m, g).astype(cdt) * oh_r[:, None, :], axis=-1
     )  # [N, M]
     pred = lutlib.dequantize(raw, lut.dtype, rc.max_dist)
 
     # Align measured ranges/validity to positions: beam k sits at position
-    # (q_n + k) mod M, so position p holds beam (p - q_n) mod M. All M rolls
-    # of the (padded) scan are one tiny static table; selecting particle n's
-    # roll is a one-hot matmul (MXU, no gathers).
-    pad = (0, m - b_beams)
-    ztab = jnp.pad(jnp.asarray(scan.dists, jnp.float32), pad)  # [M]
-    vtab = jnp.pad(jnp.ones((b_beams,), jnp.float32), pad)  # [M]
+    # (q_n + k) mod M, so position p holds beam (p - q_n) mod M — a gather
+    # from the tiny (padded) scan table, exact where a one-hot matmul could
+    # round the ranges in TF32.
+    ztab = jnp.pad(jnp.asarray(scan.dists, jnp.float32), (0, m - b_beams))
     mm = jnp.arange(m)
-    roll_idx = (mm[None, :] - mm[:, None]) % m  # [Q, p] -> beam k
-    zv_rolls = jnp.concatenate(
-        [ztab[roll_idx], vtab[roll_idx]], axis=1
-    )  # [M, 2M]
-    oh_q = jax.nn.one_hot(q, m, dtype=jnp.float32)  # [N, M]
-    zv = jnp.dot(oh_q, zv_rolls, preferred_element_type=jnp.float32)
-    z_at, valid = zv[:, :m], zv[:, m:]
+    beam = (mm[None, :] - q[:, None]) % m  # [N, M] beam at position p
+    z_at = ztab[beam]
+    valid = (beam < b_beams).astype(jnp.float32)
 
     hit = (pred < rc.max_dist) & inb[:, None]
     err = jnp.where(hit, pred - z_at, z_at - rc.max_dist)

@@ -5,7 +5,7 @@ DDA march with data-dependent exit — per-ray Python/C++ control flow that XLA
 cannot vectorize. Here a ray batch of any shape marches together in fixed-size
 chunks with masked "first event" semantics; a `lax.while_loop` exits as soon
 as every ray in the batch has resolved, preserving the early-exit economics of
-the scalar loop while keeping all compute vector-shaped for the VPU.
+the scalar loop while keeping all compute vector-shaped.
 
 Semantics match the reference exactly:
   * step positions are p_k = origin + k * step * dir, k = 1..K;
@@ -144,7 +144,7 @@ def raycast_sdf(
 ):
     """Sphere-trace rays over a Euclidean distance transform.
 
-    TPU-native replacement for the fixed-step DDA march: each iteration
+    Vectorized replacement for the fixed-step DDA march: each iteration
     gathers the EDT at the current position and advances by
     ``max(step, edt - margin)`` — obstacle-free stretches are crossed in one
     jump, so typical rays resolve in tens of iterations instead of

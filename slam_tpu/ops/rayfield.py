@@ -9,7 +9,7 @@
     static maps only (localization mode).
   * ``cddt`` — COMPRESSED directional table (obstacle-run intervals + a
     log2(K)-gather binary search per ray); static maps whose dense LUT
-    outgrows HBM (slam_tpu.ops.cddt).
+    outgrows device memory (slam_tpu.ops.cddt).
 
 `RayField` carries the map plus whichever precomputed structure the backend
 needs; `make_ray_field` builds it (host-side, once per static map) and
@@ -22,7 +22,7 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from slam_tpu.core import struct
 
 from slam_tpu.core.config import RaycastConfig
 from slam_tpu.ops import cddt as cddtlib
@@ -36,11 +36,9 @@ class RayField:
     blocked: jax.Array  # bool[H, W]
     edt: Optional[jax.Array] = None  # f32[H, W] (sdf backend)
     # [H, W, P] bins-last table; P >= lut_bins is the STORAGE width. Rows
-    # are stored UNPADDED: aligned padding (lut.pad_lut_rows) speeds the
-    # row gather 1.8x on uniform-random indices but SLOWS the real MCL
-    # step 1.4x — converged particles cluster on few cells, and aligned
-    # hot rows collide where the odd 720 B stride spreads them
-    # (RESULTS.md "Pallas" section; measured A/B on v5e).
+    # are stored UNPADDED (see lut.padded_bins): converged particles
+    # cluster on few cells, where aligned rows can make the hot set
+    # collide and the odd 720 B stride spreads them.
     lut: Optional[jax.Array] = None
     # Semantic angular bin count (static: part of the jit cache key).
     lut_bins: Optional[int] = struct.field(pytree_node=False, default=None)

@@ -51,7 +51,7 @@ def systematic_indices(key, log_w):
     i's output range is [ceil(n c_{i-1} - u0), ceil(n c_i - u0)). Those
     range starts are scattered (max of the particle index) and filled with a
     cumulative max — three elementwise passes + one scatter instead of a
-    log(N)-deep searchsorted gather chain (~4x faster at 100k on TPU)."""
+    log(N)-deep searchsorted gather chain."""
     n = log_w.shape[0]
     c = jnp.cumsum(normalized_weights(log_w))
     c = c / c[-1]
@@ -73,10 +73,9 @@ def systematic_indices(key, log_w):
 def gather_pose_packed(pose, idx):
     """pose[idx] via ONE [N, L] row gather instead of L scalar gathers.
 
-    XLA's gather cost is dominated by a per-row constant (~31 ns/row
-    measured, tools/roofline.py), so packing the pose SoA fields into one
-    row-gathered matrix is 2.2x faster at 100k particles and 4.3x at 1M
-    than gathering each field separately."""
+    A gather's cost has a large per-row constant, so packing the pose SoA
+    fields into one row-gathered matrix replaces L gathers of N rows by
+    one. Not measured on the H100."""
     leaves, treedef = jax.tree.flatten(pose)
     packed = jnp.stack(leaves, axis=1)[idx]
     return jax.tree.unflatten(treedef, [packed[:, k] for k in range(len(leaves))])

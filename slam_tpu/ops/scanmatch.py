@@ -11,7 +11,7 @@ field the correlative table measurement builds on,
 `measurement.lf_log_score_field`), then a quadratic fit to the peak
 recovers sub-cell / sub-bin resolution.
 
-Three properties make this TPU-shaped and sub-cell accurate:
+Three properties make this vectorized and sub-cell accurate:
 
   * Endpoints are scored by BILINEAR interpolation of the log-score field
     at their continuous positions (nearest-cell snapping would quantize

@@ -1,12 +1,12 @@
-"""Multi-host (pod-slice) runtime initialization.
+"""Multi-host runtime initialization.
 
-The reference is single-machine pthreads only (SURVEY.md section 2); the
-TPU framework scales across hosts with `jax.distributed` + a mesh whose
-particle axis spans all chips. On a pod slice each host runs the same
-program; after `initialize()`, `jax.devices()` is global and the sharded
-engines in slam_tpu.parallel work unchanged — GSPMD routes the beam-axis
-psum over ICI within hosts and the (rare) cross-host resampling gathers
-over DCN.
+The reference is single-machine pthreads only (SURVEY.md section 2); this
+framework scales across hosts with `jax.distributed` + a mesh whose
+particle axis spans all GPUs. Each host runs the same program; after
+`initialize()`, `jax.devices()` is global and the sharded engines in
+slam_tpu.parallel work unchanged — within a host the GPUs are joined all
+to all by NVLink, so XLA's collectives (NCCL) carry the beam-axis psum
+there, and the (rare) cross-host resampling exchanges cross the network.
 
 Data feeding: each host simulates/ingests scans for its own shard via
 `host_local_slice`, or host 0 broadcasts via `multihost_utils` (scans are a
@@ -26,9 +26,10 @@ def initialize(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> None:
-    """Bring up the jax.distributed runtime. On Cloud TPU pods all arguments
-    are auto-detected from the metadata server; pass them explicitly for
-    manual clusters."""
+    """Bring up the jax.distributed runtime. Nothing in a plain GPU cluster
+    tells JAX its layout: pass ``coordinator_address`` (``host:port`` of
+    process 0), ``num_processes`` and ``process_id`` explicitly, unless a
+    cluster manager JAX detects (e.g. SLURM) provides them."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs["coordinator_address"] = coordinator_address

@@ -21,11 +21,11 @@ to the replicated transform (tests/test_mapshard.py):
 
 Traffic per step: 2 * sum(steps) rows of i32 per block pair — for the
 maze-scale cap (32) that is ~64 rows x W x 4 B ~= 0.6 MB per neighbor link,
-riding ICI next to a multi-MB map block.
+next to a multi-MB map block.
 
 Reference anchor: the reference rebuilds nothing — it re-marches every beam
 against each particle's own map (`slam/raycast.cpp:143-223`); the sharded
-JFA is the field-level equivalent for the shared-map TPU design.
+JFA is the field-level equivalent for the shared-map design.
 """
 
 from __future__ import annotations
@@ -154,7 +154,7 @@ def edt_capped_sharded(
 ) -> jax.Array:
     """Range-capped separable EXACT EDT over a row-block-sharded mask —
     the sharded form of `ops.edt.edt_capped` (the capped-path fast
-    transform; see its docstring for the on-chip A/B vs the JFA).
+    transform; see its docstring for how it compares with the JFA).
 
     Far simpler to distribute than the JFA: the vertical clamped column
     distance only looks C+1 rows up/down, so ONE exchange of (C+1)-row

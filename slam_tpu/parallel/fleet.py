@@ -1,7 +1,7 @@
 """Sharded multi-robot MCL fleet: robots over the 'p' mesh axis.
 
 The fleet axis is embarrassingly parallel (robots share only the read-only
-map), so the pod-scale serving layout is the simplest possible sharding:
+map), so the multi-GPU serving layout is the simplest possible sharding:
 stack R filters (slam_tpu.models.fleet) and place every [R, ...] state leaf
 on P('p'). GSPMD partitions the vmapped step with zero cross-robot
 collectives — each device advances its robots independently while the

@@ -143,8 +143,8 @@ class MapShardedGridSLAM:
     ``likelihood_field`` and ``likelihood_field_table`` (with the
     mandatory ``lf_table_box``) run against a DISTRIBUTED capped-JFA EDT
     (`slam_tpu.parallel.edt`): each block iterates the shifted-min passes
-    with per-pass row halos from its neighbors (ppermute), so beyond-HBM
-    maps get the fast measurement tiers without any device materializing
+    with per-pass row halos from its neighbors (ppermute), so maps beyond
+    one device's memory get the fast measurement tiers without any device materializing
     a full-map array. Numerics match the replicated engine bitwise up to
     psum single-contribution sums (equivalence-tested in
     tests/test_mapshard.py)."""

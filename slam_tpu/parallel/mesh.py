@@ -2,15 +2,16 @@
 
 The reference's only parallelism is a pthread fan-out over contiguous
 particle ranges plus core-pinned map-copy threads (`slam/mcl.cpp:108-144,
-205-227`). The TPU equivalent is a `jax.sharding.Mesh` with two axes:
+205-227`). The equivalent here is a `jax.sharding.Mesh` with two axes:
 
   * ``'p'`` — the particle axis (the data-parallel axis; scales N).
   * ``'b'`` — the beam axis (splits each particle's scan across devices; the
     per-particle log-weight reduction becomes a psum over 'b').
 
-On a pod slice the 'p' axis should span hosts (DCN) and 'b' should stay
-within a host (ICI) so the per-update beam reduction rides the fast links;
-`make_mesh` orders the axes that way.
+The GPUs of one host are joined all to all by NVLink, so within a host the
+mesh shape follows the algorithm alone. Across hosts the 'p' axis should
+span hosts and 'b' should stay within a host, so the per-update beam
+reduction rides NVLink; `make_mesh` orders the axes that way.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 The single-device resampler (`slam_tpu.ops.resample.systematic_indices`)
 computes a global cumsum and gathers `state[idx]`; under GSPMD on a sharded
 particle axis that gather materializes every shard's particle state on every
-device (an [N]-sized all-gather — the TPU analogue of the reference's
+device (an [N]-sized all-gather — the analogue of the reference's
 core-pinned cross-thread map deep-copies, `slam/mcl.cpp:205-227`). This
 module is the SURVEY section 7 item 4 design: an explicit `shard_map`
 resampler whose only [N]-sized collective is a **reduce-scatter**

@@ -9,11 +9,12 @@ ellipse kernel for vehicle inflation then threshold).
 from __future__ import annotations
 
 import numpy as np
-from PIL import Image
 
 
 def load_grayscale(path) -> np.ndarray:
     """u8[H, W] grayscale image."""
+    from PIL import Image
+
     return np.asarray(Image.open(path).convert("L"))
 
 

@@ -2,7 +2,7 @@
 
 The reference's observability is interactive OpenCV drawing (`cv::imshow` in
 every app; particle/pose overlays `apps/grid_slam.cpp:112-127`, frontier and
-tree drawing inside the planners). A TPU deployment is headless, so the
+tree drawing inside the planners). An accelerator deployment is headless, so the
 equivalent here renders numpy frames and writes PNG/GIF via PIL. All drawing
 is host-side numpy — observability, not compute.
 
@@ -14,7 +14,6 @@ from __future__ import annotations
 from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
-from PIL import Image
 
 # `slam/colors.h` equivalents (RGB).
 BLUE = (0, 0, 255)
@@ -121,12 +120,16 @@ def draw_scan(img, sensor_x, sensor_y, sensor_theta, angles, dists, color=CYAN):
 
 
 def save_png(img: np.ndarray, path: str) -> None:
+    from PIL import Image
+
     Image.fromarray(img).save(path)
 
 
 def save_gif(frames: List[np.ndarray], path: str, fps: int = 10) -> None:
     """Assemble frames into an animated GIF (the notebook's slam.gif
     analogue)."""
+    from PIL import Image
+
     ims = [Image.fromarray(f) for f in frames]
     ims[0].save(
         path,

@@ -1,5 +1,5 @@
 """App smoke tests: each CLI demo runs headlessly end-to-end on tiny
-configs (CPU; conftest pins the backend)."""
+configs (``--cpu``: without it an app refuses to run off the GPU)."""
 
 import numpy as np
 import pytest
@@ -18,7 +18,7 @@ def test_grid_slam_app(tmp_path):
     out = str(tmp_path / "s.gif")
     ate = grid_slam.main(
         [
-            "--particles", "64", "--steps", "20", "--n-rays", "12",
+            "--cpu", "--particles", "64", "--steps", "20", "--n-rays", "12",
             "--max-dist", "60", "--frame-every", "5", "--out", out,
         ]
     )
@@ -30,7 +30,7 @@ def test_grid_slam_app_loc_mode(tmp_path):
     out = str(tmp_path / "l.gif")
     ate = grid_slam.main(
         [
-            "--mode", "loc", "--particles", "64", "--steps", "15",
+            "--cpu", "--mode", "loc", "--particles", "64", "--steps", "15",
             "--n-rays", "12", "--max-dist", "60", "--out", out,
         ]
     )
@@ -38,14 +38,14 @@ def test_grid_slam_app_loc_mode(tmp_path):
 
 
 def test_astar_app(tmp_path):
-    ok = astar_planner.main(["--out", str(tmp_path / "a.png")])
+    ok = astar_planner.main(["--cpu", "--out", str(tmp_path / "a.png")])
     assert ok
 
 
 def test_hastar_app(tmp_path):
     ok = hastar_planner.main(
         [
-            "--out", str(tmp_path / "h.png"), "--velocity", "5",
+            "--cpu", "--out", str(tmp_path / "h.png"), "--velocity", "5",
             "--batch", "64", "--inflate", "2",
             "--start", "40", "64", "--goal", "200", "64",
         ]
@@ -56,7 +56,7 @@ def test_hastar_app(tmp_path):
 def test_rrt_app(tmp_path):
     ok = rrt_planner.main(
         [
-            "--out", str(tmp_path / "r.png"), "--n-points", "100",
+            "--cpu", "--out", str(tmp_path / "r.png"), "--n-points", "100",
             "--reach", "8", "--radius", "16", "--max-nodes", "1024",
             "--batch", "64", "--inflate", "2",
         ]
@@ -70,12 +70,12 @@ def test_planner_progress_animations(tmp_path):
     expansions `slam/hastar.cpp:168-204`, RRT* tree growth
     `slam/rrtstar.cpp:107-144`)."""
     ok = astar_planner.main(
-        ["--out", str(tmp_path / "a.png"), "--animate", str(tmp_path / "a.gif")]
+        ["--cpu", "--out", str(tmp_path / "a.png"), "--animate", str(tmp_path / "a.gif")]
     )
     assert ok and (tmp_path / "a.gif").exists()
     ok = hastar_planner.main(
         [
-            "--out", str(tmp_path / "h.png"), "--velocity", "5",
+            "--cpu", "--out", str(tmp_path / "h.png"), "--velocity", "5",
             "--batch", "64", "--inflate", "2",
             "--start", "40", "64", "--goal", "200", "64",
             "--animate", str(tmp_path / "h.gif"), "--animate-every", "8",
@@ -84,7 +84,7 @@ def test_planner_progress_animations(tmp_path):
     assert ok and (tmp_path / "h.gif").exists()
     ok = rrt_planner.main(
         [
-            "--out", str(tmp_path / "r.png"), "--n-points", "100",
+            "--cpu", "--out", str(tmp_path / "r.png"), "--n-points", "100",
             "--reach", "8", "--radius", "16", "--max-nodes", "1024",
             "--batch", "64", "--inflate", "2",
             "--animate", str(tmp_path / "r.gif"),
@@ -95,10 +95,10 @@ def test_planner_progress_animations(tmp_path):
 
 def test_nn_and_regions_apps(tmp_path):
     nearest_neighbor.main(
-        ["--n", "200", "--queries", "3", "--check", "--out", str(tmp_path / "n.png")]
+        ["--cpu", "--n", "200", "--queries", "3", "--check", "--out", str(tmp_path / "n.png")]
     )
     regions.main(
-        ["--n", "300", "--boxes", "2", "--check", "--out", str(tmp_path / "g.png")]
+        ["--cpu", "--n", "300", "--boxes", "2", "--check", "--out", str(tmp_path / "g.png")]
     )
 
 
@@ -107,11 +107,11 @@ def test_index_structure_visualizations(tmp_path):
     quadtree node-box rendering (`slam/kdtree.cpp:201-223`,
     `slam/quadtree.cpp:141-161`)."""
     nearest_neighbor.main(
-        ["--n", "50", "--queries", "2", "--size", "64", "--check",
+        ["--cpu", "--n", "50", "--queries", "2", "--size", "64", "--check",
          "--draw-partition", "--out", str(tmp_path / "nv.png")]
     )
     regions.main(
-        ["--n", "60", "--boxes", "1", "--size", "64", "--check",
+        ["--cpu", "--n", "60", "--boxes", "1", "--size", "64", "--check",
          "--draw-tree", "--out", str(tmp_path / "gv.png")]
     )
     assert (tmp_path / "nv.png").exists()
@@ -126,7 +126,7 @@ def test_interactive_replanning(tmp_path, monkeypatch):
 
     monkeypatch.setattr("sys.stdin", io.StringIO("40 40 100 100\nquit\n"))
     ok = rrt_planner.main(
-        ["--out", str(tmp_path / "r.png"), "--n-points", "50",
+        ["--cpu", "--out", str(tmp_path / "r.png"), "--n-points", "50",
          "--reach", "16", "--radius", "32", "--max-nodes", "1024",
          "--batch", "64", "--inflate", "2", "--interactive"]
     )
@@ -137,7 +137,7 @@ def test_interactive_replanning(tmp_path, monkeypatch):
         "sys.stdin", io.StringIO("start 40 40\ngoal 100 100\nq\n")
     )
     ok = hastar_planner.main(
-        ["--out", str(tmp_path / "h.png"), "--velocity", "5",
+        ["--cpu", "--out", str(tmp_path / "h.png"), "--velocity", "5",
          "--batch", "64", "--inflate", "2",
          "--start", "40", "64", "--goal", "200", "64", "--interactive"]
     )
@@ -150,7 +150,7 @@ def test_fleet_localization_app(tmp_path):
 
     out = str(tmp_path / "fleet.png")
     mean_ate = fleet_localization.main(
-        ["--map", "", "--robots", "2", "--particles", "256", "--steps", "8",
+        ["--cpu", "--map", "", "--robots", "2", "--particles", "256", "--steps", "8",
          "--beams", "16", "--backend", "sdf", "--out", out]
     )
     assert mean_ate < 10.0
@@ -174,7 +174,7 @@ def test_slam_replan_app(tmp_path):
     with contextlib.redirect_stdout(buf):
         rc = slam_replan.main(
             [
-                "--size", "96", "--particles", "128", "--steps", "220",
+                "--cpu", "--size", "96", "--particles", "128", "--steps", "220",
                 "--n-rays", "16", "--max-dist", "50", "--table-box", "32",
                 "--replan-every", "25", "--speed", "2.0",
                 "--planner-batch", "64", "--max-rounds", "600",

@@ -1,5 +1,5 @@
-"""Opt-in head-to-head regression vs the C++ reference (VERDICT r1 item 7,
-re-scoped with honest statistics in round 4).
+"""Opt-in head-to-head regression vs the C++ reference (with honest
+statistics).
 
 Runs the reference binary (`tools/refbench/ref_mcl_traj`, built from the
 unmodified sources in /root/reference) along its deterministic trajectory
@@ -148,7 +148,7 @@ def test_rbpf_matches_reference_regime(ref_trajs):
     )
 
 
-# C++ harness long-run statistics, round 4 (RESULTS.md "Head-to-head"):
+# C++ harness long-run statistics:
 # 20 clock-seeded runs observed, per-run ATE 1.3-56.6 px; mean 17.6 over
 # the first 15.
 CPP_LONGRUN_MEAN_PX = 17.6
@@ -158,8 +158,7 @@ RBPF_REGIME_BOUND_PX = 30.0
 # Absolute bar for the flagship engine's 2-seed mean: measured 12.6/12.9 px
 # (seed 2: 1.6) after the round-4 uninformative-argmax fallback — the bar
 # sits under the C++ long-run mean with headroom for seed noise, and exists
-# so a "still beats a lucky C++ sample" regression cannot hide (VERDICT r3
-# item 2).
+# so a "still beats a lucky C++ sample" regression cannot hide.
 FLAGSHIP_MEAN_BOUND_PX = 16.0
 
 

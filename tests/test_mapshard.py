@@ -279,7 +279,7 @@ def test_sharded_direct_lf_matches_replicated(rng):
     [("likelihood_field", None), ("likelihood_field_table", 32)],
 )
 def test_map_sharded_slam_lf_tiers_match_single_device(measurement, box):
-    """Round 5 (VERDICT item 2): MapShardedGridSLAM with the
+    """MapShardedGridSLAM with the
     likelihood-field tiers — distributed JFA + sharded endpoint gathers /
     boxed table from the psum-assembled window — matches the replicated
     engine's numerics on the 8-device mesh."""

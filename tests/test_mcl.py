@@ -610,7 +610,7 @@ def test_first_update_uninformative_fallback():
     scores the z_rand floor, argmax-of-uniform-weights is an arbitrary
     particle, and mapping from it bakes one random motion-noise heading
     draw into the shared map's gauge (measured -0.049 rad at t=0 and
-    11-31 px of 120-step arc ATE; RESULTS.md round 4). best_pose must fall
+    11-31 px of 120-step arc ATE). best_pose must fall
     back to the sharpened weighted mean (MCLState.mode_pose) whenever the
     measurement is uninformative — under uniform weights, the prior mean."""
     from slam_tpu.models import fake_lidar, slam as slam_mod

@@ -92,8 +92,7 @@ def test_sharded_slam_step_runs_and_stays_sharded():
 
 @pytest.mark.parametrize("table_box", [None, 40])
 def test_sharded_slam_lf_table_matches_single_device(table_box):
-    """The correlative-table measurement (the 1M-step fast path, 11x over
-    the direct likelihood field at 1M — RESULTS.md round 3) under the
+    """The correlative-table measurement (the 1M-step fast path) under the
     sharded engine: the heading-window circular stats — and, with
     lf_table_box, the box-center mean — reduce over the SHARDED particle
     axis (GSPMD psum) and must match the single-device numerics; the table
@@ -229,7 +228,7 @@ class TestShardedResample:
             self._check(mesh, lw, key)
 
     def test_update_hlo_has_no_large_all_gather(self):
-        """The VERDICT r1 item 4 acceptance: the sharded MCL update compiles
+        """The sharded MCL update compiles
         with NO [N]-sized all-gather — resampling exchanges state via
         reduce-scatter, best-pose extraction via masked psum; the only
         all-gathers left are [D]-sized shard reductions."""
@@ -353,9 +352,7 @@ def test_sharded_fleet_matches_unsharded():
 def test_sharded_slam_scanmatch_matches_single_device():
     """SLAMConfig.scanmatch under the particle-sharded engine: the
     correlative refinement runs on the replicated grid/EDT after the
-    sharded update, and `est_pose` must match the single-device engine
-    (VERDICT r3 item 7b — round 3 shipped scanmatch with zero sharded
-    coverage)."""
+    sharded update, and `est_pose` must match the single-device engine."""
     blocked, pose, scan, _ = _scene()
     from slam_tpu.core.config import ScanMatchConfig
 
@@ -407,7 +404,7 @@ def test_sharded_slam_scanmatch_matches_single_device():
 
 def test_sharded_state_checkpoint_roundtrip(tmp_path):
     """Orbax save/restore of a SHARDED SLAM state on the 8-device mesh —
-    the production restore path (VERDICT r3 item 7c). The restored state
+    the production restore path. The restored state
     must match numerically AND come back sharded per the template."""
     blocked, pose, scan, _ = _scene()
     cfg = SLAMConfig(
@@ -444,7 +441,7 @@ def test_sharded_state_checkpoint_roundtrip(tmp_path):
 
 
 def test_sharded_kidnap_recovery_with_capped_injection():
-    """Round 5 (VERDICT item 8): the capped-injection + auto-tier kidnap
+    """The capped-injection + auto-tier kidnap
     scenario through ShardedMCL on the 8-device mesh — the injection's
     free-space sampling, the EMAs, the auto-tier predicate, and the
     mode_pose estimator all cross sharded reductions."""

@@ -151,9 +151,9 @@ class TestSLAMIntegration:
     def test_slam_with_scanmatch_tracks(self):
         """SLAM-mode refinement (vs the LEARNED map) is bounded by map
         quality: the refined trajectory must track within a small margin of
-        the best-particle trajectory it seeds from (the measured behavior —
-        see RESULTS.md: neutral at converged scale, the win is in
-        known-map localization)."""
+        the best-particle trajectory it seeds from (the measured behavior:
+        neutral at converged scale, the win is in known-map
+        localization)."""
         blocked = jnp.asarray(simulate.synthetic_room())
         cfg = self._cfg(ScanMatchConfig())
         res = simulate.run_slam(

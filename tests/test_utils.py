@@ -112,7 +112,7 @@ def test_checkpoint_migrates_old_format(tmp_path):
     fields with documented defaults instead of raising — est_pose and
     mode_pose from the saved best particle, updates from the saved frame
     counter, EMAs from the NaN warm-start sentinel."""
-    from flax import struct
+    from slam_tpu.core import struct
 
     from slam_tpu.core.types import Particles
 
@@ -188,7 +188,7 @@ def test_checkpoint_migration_rejects_real_mismatch(tmp_path):
 
 def test_checkpoint_manager_migrates_old_format(tmp_path):
     """CheckpointManager.restore migrates old formats the same way."""
-    from flax import struct
+    from slam_tpu.core import struct
 
     from slam_tpu.core.types import Particles
 

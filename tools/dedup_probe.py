@@ -1,11 +1,9 @@
 #!/usr/bin/env python
-"""Unique-key dedup probe for the gather-bound measurement paths (VERDICT r3
-item 1 / "next round" #1).
+"""Unique-key dedup probe for the gather-bound measurement paths.
 
-The headline claim "one row per particle is the panorama's algorithmic
-minimum" (RESULTS.md "gather floor, settled") has a hole: the minimum is one
-row per DISTINCT key, and converged clouds cluster on few map cells (that is
-exactly why aligned-row padding lost). Both hot paths' per-particle values
+"One row per particle is the panorama's algorithmic minimum" has a hole:
+the minimum is one row per DISTINCT key, and converged clouds cluster on
+few map cells. Both hot paths' per-particle values
 are pure functions of a small discrete key:
 
   * panorama/fused (`ops/measurement.py:particle_log_weights_lut_fused`):
@@ -15,7 +13,7 @@ are pure functions of a small discrete key:
     the 2-element gather depends only on (sensor cell, t0); the per-particle
     lerp fraction stays per-particle.
 
-This probe measures, same-process on-chip, baseline vs a sort-dedup variant
+This probe measures, in one process on the device, baseline vs a sort-dedup variant
 (lax.sort_key_val -> segment ids -> gather K unique rows/pairs -> route back
 through the sort permutation), on BOTH a converged cloud (the bench's real
 post-warmup particle state) and a dispersed one (uniform over free space —
@@ -82,7 +80,7 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    import bench as B
+    from slam_tpu.models.simulate import synthetic_floor_plan
     from slam_tpu.core import grid as gridlib
     from slam_tpu.core.config import (
         LidarConfig,
@@ -93,9 +91,8 @@ def main():
     from slam_tpu.core.types import Odometry, Pose
     from slam_tpu.models import fake_lidar, mcl as mcl_mod
     from slam_tpu.ops import lut as lutlib, measurement, rayfield
-    from slam_tpu.utils.profiling import fence
 
-    blocked = jnp.asarray(B.floor_plan_blocked())
+    blocked = jnp.asarray(synthetic_floor_plan())
     h, w = blocked.shape
     lidar = LidarConfig(start=0.0, stop=np.pi, max_dist=500.0, n_rays=90)
     backend = "lut" if args.path == "pano" else "sdf"
@@ -126,7 +123,7 @@ def main():
     state = mcl_mod.init(jax.random.key(0), args.particles, pose)
     for _ in range(args.warmup_steps):
         state = step(state, field, scan)
-    fence(state)
+    jax.block_until_ready(state)
     converged = state.particles.pose
 
     # Dispersed: uniform over free cells, uniform heading (global
@@ -413,13 +410,13 @@ def main():
             if overflow and name == "dedup":
                 continue
             out = fn(poses, big)
-            fence(out)
+            jax.block_until_ready(out)
             reps = []
             for _ in range(args.repeats):
                 t0 = time.perf_counter()
                 for _ in range(args.iters):
                     out = fn(poses, big)
-                fence(out)
+                jax.block_until_ready(out)
                 reps.append(
                     1e3 * (time.perf_counter() - t0) / args.iters
                 )

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Global localization at scale: uniform init over all free space, converge.
 
-The capability the shared-map TPU architecture unlocks and the reference
+The capability the shared-map architecture unlocks and the reference
 cannot touch: global localization NEEDS particle density over the whole
 pose space (the notebook prototype, SURVEY.md item 23, ran it at toy
 sizes; the C++ RBPF tops out near 250 particles because every particle
@@ -45,7 +45,7 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from bench import floor_plan_blocked
+    from slam_tpu.models.simulate import synthetic_floor_plan
     from slam_tpu.core.config import (
         LidarConfig,
         MCLConfig,
@@ -58,9 +58,8 @@ def main():
     from slam_tpu.models import fake_lidar, mcl as mcl_mod, simulate
     from slam_tpu.ops import motion, rayfield
     from slam_tpu.ops.measurement import sensor_pose
-    from slam_tpu.utils.profiling import fence
 
-    blocked = jnp.asarray(floor_plan_blocked())
+    blocked = jnp.asarray(synthetic_floor_plan())
     lidar = LidarConfig(start=0.0, stop=np.pi, max_dist=500.0, n_rays=90)
     rc = RaycastConfig(step=0.5, max_dist=500.0, backend="lut")
     cfg = SLAMConfig(
@@ -106,7 +105,7 @@ def main():
             t0 = time.perf_counter()
             st = m.predict(st, odom, cfg.motion.alphas)
             st = m.update(st, scan, field)
-            fence(st)
+            jax.block_until_ready(st)
             step_ms.append((time.perf_counter() - t0) * 1e3)
             mp = mcl_mod.mean_pose(st)
             err = float(

@@ -1,11 +1,10 @@
 #!/usr/bin/env python
 """Capped-JFA inner-loop A/B: seed-index packing variants (round 5).
 
-The maze phase probe attributes 10.4 of the 15.9 ms full-SLAM step to
-the capped JFA, ~6x off its ~1.6 ms HBM-bandwidth bound — the pass is
-ALU-bound, and the prime suspect is the per-candidate seed unpack: the
-flat index costs an i32 DIVISION and a MODULO per cell per direction
-(8 per pass), and integer division is many VPU ops on TPU. Variants:
+The capped JFA can be ALU-bound rather than bandwidth-bound, and the prime
+suspect is the per-candidate seed unpack: the flat index costs an i32
+DIVISION and a MODULO per cell per direction (8 per pass), and integer
+division is many vector ops. Variants:
 
   divmod   the shipped form: idx = i * w + j; unpack by // and %
   shift    idx = (i << 16) | j; unpack by >> and & (single-cycle ops)
@@ -191,7 +190,6 @@ def main():
     import jax.numpy as jnp
 
     from slam_tpu.utils.maps import load_binary_map
-    from slam_tpu.utils.profiling import fence
 
     if os.path.exists(args.map) and not args.cpu:
         blocked_np = np.asarray(load_binary_map(args.map) == 0)
@@ -208,7 +206,7 @@ def main():
            ("divmod", "shift", "carry2", "sep")}
     for k, f in fns.items():
         outs[k] = f(blocked)
-        fence(outs[k])
+        jax.block_until_ready(outs[k])
         res[k] = 0.0
     reps = 5  # pipelined chain per sample: one fence RTT per reps calls
     for _ in range(args.iters):
@@ -216,7 +214,7 @@ def main():
             t0 = time.perf_counter()
             for _r in range(reps):
                 o = f(blocked)
-            fence(o)
+            jax.block_until_ready(o)
             res[k] += time.perf_counter() - t0
     for k in res:
         res[k] = res[k] / (args.iters * reps) * 1e3

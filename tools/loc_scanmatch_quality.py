@@ -39,7 +39,7 @@ def main():
 
     import jax.numpy as jnp
 
-    from bench import floor_plan_blocked
+    from slam_tpu.models.simulate import synthetic_floor_plan
     from slam_tpu.core.config import (
         LidarConfig,
         MCLConfig,
@@ -53,7 +53,7 @@ def main():
     from slam_tpu.ops import rayfield
     from slam_tpu.utils.metrics import ate_rmse
 
-    blocked = jnp.asarray(floor_plan_blocked())
+    blocked = jnp.asarray(synthetic_floor_plan())
     lidar = LidarConfig(start=0.0, stop=np.pi, max_dist=500.0, n_rays=90)
     rc = RaycastConfig(step=0.5, max_dist=500.0, backend="sdf")
     field = rayfield.make_ray_field(blocked, rc)

@@ -3,12 +3,11 @@
 one rotated canvas serves 4 bins) vs the direct per-bin construction.
 
 The build is gather-bound (rotation resampling + back-sampling), so the
-quad construction's 4x rotation-gather cut should show directly on chip;
-the CPU A/B shows only ~1.4x (CPU gathers aren't latency-bound the same
-way). Floor-plan-sized map by default; pass --maze for the big-map build
-(minutes — the number that motivated the change: 12.5 min dense build).
+quad construction's 4x rotation-gather cut should show directly on the
+device. Floor-plan-sized map by default; pass --maze for the big-map
+build.
 
-    python tools/lut_build_ab.py          # TPU, floor plan, 360 bins
+    python tools/lut_build_ab.py          # GPU, floor plan, 360 bins
     python tools/lut_build_ab.py --cpu
 """
 
@@ -49,9 +48,9 @@ def main():
         )
         args.reps = 1
     else:
-        import bench as B
+        from slam_tpu.models.simulate import synthetic_floor_plan
 
-        blocked = jnp.asarray(B.floor_plan_blocked())
+        blocked = jnp.asarray(synthetic_floor_plan())
 
     def fence(x):
         np.asarray(jax.device_get(x.ravel()[:1]))

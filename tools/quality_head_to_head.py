@@ -4,8 +4,7 @@
 Run `tools/refbench/build.sh`, then
 `.build/ref_mcl_traj <map> 200 120 2.5 0.02 > /tmp/ref_traj.jsonl`, then this
 script: it replays the identical deterministic trajectory and exact-DDA scans
-through the slam_tpu filter and prints both implementations' ATE. See
-RESULTS.md for recorded numbers.
+through the slam_tpu filter and prints both implementations' ATE.
 """
 
 import json

@@ -15,13 +15,13 @@ through slam_tpu grid SLAM in BOTH configurations and prints each ATE:
                particles.
 
     python tools/quality_head_to_head_slam.py [ref1.jsonl ref2.jsonl ...]
-        [--tpu] [--flagship-n 10000] [--steps 120] [--seeds 3]
+        [--gpu] [--flagship-n 10000] [--steps 120] [--seeds 3]
 
 Pass SEVERAL ref files: the reference's clock-seeded ATE is bimodal
 (measured 1.3-24.7 px over 5 runs), so a single file is not a baseline.
 Our side runs --seeds filter seeds per configuration for the same reason.
-CPU by default (deterministic, matches the C++ machine); --tpu runs the
-flagship configs on the chip (the parity config stays CPU-comparable).
+CPU by default (deterministic, matches the C++ machine); --gpu runs the
+flagship configs on the GPU (the parity config stays CPU-comparable).
 """
 
 import argparse
@@ -37,7 +37,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("ref", nargs="*", default=["/tmp/ref_traj.jsonl"],
                     help="reference trajectory jsonl files (length + ATE)")
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--gpu", action="store_true")
     ap.add_argument("--flagship-n", type=int, default=10_000)
     ap.add_argument("--steps", type=int, default=None,
                     help="override step count (default: the ref file's)")
@@ -47,7 +47,7 @@ def main():
 
     import jax
 
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import numpy as np

@@ -11,8 +11,6 @@ slam_tpu's RBPF (`models/rbpf.py`, maps resampled by one batched gather) at
 
     python tools/rbpf_fidelity.py --particles 1000 --steps 120
     python tools/rbpf_fidelity.py --particles 64 --steps 25 --cpu
-
-Recorded numbers: RESULTS.md "Head-to-head" section.
 """
 
 import argparse

@@ -1,20 +1,16 @@
 #!/usr/bin/env python
-"""Same-process RRT* A/B on the reference benchmark query (drift-honest).
+"""Same-process RRT* A/B on the reference benchmark query.
 
-The recorded "181 ms vs C++ 753 ms" RRT* number (RESULTS.md "Planners") is a
-round-1 single-window measurement with no drift control, in an environment
-that drifts up to ~5x on dispatch-latency-bound workloads (the HA* round-1
-123 ms re-measured 129-700 ms by the hour). This tool re-pins it the way
-`tools/hastar_ab.py` pinned HA*: every variant interleaved round-robin in ONE
-process, with the continuous-mode Hybrid A* query (the established drift
-control whose best-window reading is 129 ms) in the same table, so the
-variant ratios — and the drift state of the window — are explicit.
+Every variant is interleaved round-robin in ONE process, the way
+`tools/hastar_ab.py` compares HA* variants, with the continuous-mode Hybrid
+A* query as a control in the same table, so the variant ratios hold within
+the run.
 
-Reference config (`/root/reference/benchmark/rrtstar.cpp:10-33`): floor
-plan, start image (150,450) goal (450,750), reach 20, radius 50, seeds
-1234+k per query.
+Reference config (reference `benchmark/rrtstar.cpp:10-33`): floor plan,
+start image (150,450) goal (450,750), reach 20, radius 50, seeds 1234+k per
+query.
 
-    python tools/rrtstar_ab.py            # TPU
+    python tools/rrtstar_ab.py            # GPU
     python tools/rrtstar_ab.py --cpu      # functional check
 """
 
@@ -42,7 +38,7 @@ def main():
 
     import jax.numpy as jnp
 
-    import bench as B
+    from slam_tpu.models.simulate import synthetic_floor_plan
     from slam_tpu.apps.common import inflate
     from slam_tpu.core.config import (
         HybridAStarConfig,
@@ -52,7 +48,7 @@ def main():
     from slam_tpu.core.types import Pose
     from slam_tpu.planners import HybridAStar, RRTStar
 
-    blocked = B.floor_plan_blocked()
+    blocked = synthetic_floor_plan()
     h, _w = blocked.shape
     free = jnp.asarray(~inflate(blocked, 7))
     # RRT* takes (x, y) tuples; the HA* drift control takes Poses.
@@ -60,8 +56,8 @@ def main():
     a = Pose.create(*a_xy, 0.0)
     b = Pose.create(*b_xy, 0.0)
 
-    # Drift control: the continuous-mode HA* query (~100 small dispatches,
-    # maximally drift-sensitive; best-ever window 129 ms, worst ~700).
+    # Control: the continuous-mode HA* query (~100 small dispatches, the
+    # most sensitive to dispatch latency).
     vel, steer = 10.0, 40 * math.pi / 180
     hcfg = HybridAStarConfig(
         velocity=vel,

@@ -1,13 +1,11 @@
 #!/usr/bin/env python
 """Closed-loop SLAM quality at large N under the correlative-table
-measurement — the quality companion of tools/slam_roofline.py's 11x
-latency win (1M full-SLAM step 706 -> 64.6 ms with
-measurement='likelihood_field_table').
+measurement (measurement='likelihood_field_table') against the direct
+likelihood field.
 
 Runs full SLAM (unknown map, mapping every step) on the floor plan over a
 scripted arc for BOTH measurement models at --particles, reporting ATE —
-the "ATE bounds unchanged" evidence VERDICT r2 item 2 requires before the
-table path can be called the large-N default.
+the evidence that the table path keeps the direct model's ATE bounds.
 
     nohup setsid python -u tools/slam_1m_quality.py --particles 1000000 \
         > /tmp/slam_1m_quality.log 2>&1 &
@@ -49,7 +47,7 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from bench import floor_plan_blocked
+    from slam_tpu.models.simulate import synthetic_floor_plan
     from slam_tpu.core.config import (
         LidarConfig,
         MCLConfig,
@@ -61,7 +59,7 @@ def main():
     from slam_tpu.models import simulate
     from slam_tpu.utils.metrics import ate_rmse
 
-    blocked = jnp.asarray(floor_plan_blocked())
+    blocked = jnp.asarray(synthetic_floor_plan())
     h, w = blocked.shape
     lidar = LidarConfig(start=0.0, stop=np.pi, max_dist=500.0, n_rays=90)
     rc = RaycastConfig(step=0.5, max_dist=500.0, backend="sdf")

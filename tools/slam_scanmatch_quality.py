@@ -44,7 +44,7 @@ def main():
 
     import jax.numpy as jnp
 
-    from bench import floor_plan_blocked
+    from slam_tpu.models.simulate import synthetic_floor_plan
     from slam_tpu.core.config import (
         LidarConfig,
         MCLConfig,
@@ -56,9 +56,8 @@ def main():
     from slam_tpu.core.types import Odometry, Pose
     from slam_tpu.models import fake_lidar, simulate, slam as slam_mod
     from slam_tpu.utils.metrics import ate_rmse
-    from slam_tpu.utils.profiling import fence
 
-    blocked = jnp.asarray(floor_plan_blocked())
+    blocked = jnp.asarray(synthetic_floor_plan())
     lidar = LidarConfig(start=0.0, stop=np.pi, max_dist=500.0, n_rays=90)
     rc = RaycastConfig(step=0.5, max_dist=500.0, backend="sdf")
     start = Pose.create(400.0, 400.0, np.pi)
@@ -104,11 +103,11 @@ def main():
             blocked, sensor_pose(gt, c.mcl.scanner_offset), lidar, rc
         )
         st = engine.step(st, odom, scan)
-        fence(st)
+        jax.block_until_ready(st)
         t0 = time.perf_counter()
         for _ in range(args.lat_iters):
             st = engine.step(st, odom, scan)
-        fence(st)
+        jax.block_until_ready(st)
         step_ms = (time.perf_counter() - t0) / args.lat_iters * 1e3
         out[name] = {
             **{k: round(float(np.mean(v)), 2) for k, v in ates.items()},
